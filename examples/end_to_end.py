@@ -19,7 +19,7 @@ import jax
 def simple_chain():
     print("== simple Hamming84 chain (the reference's encode/decode) ==")
     p = LoraParams(sf=7)
-    payload = np.frombuffer(b"hello tpu lora!!", dtype=np.uint8)
+    payload = np.frombuffer(b"hello gpu lora!!", dtype=np.uint8)
     symbols = modem.encode(payload)
     iq = modem.modulate(symbols, p)
     res = modem.demodulate(modem.dechirp(iq, p), p)

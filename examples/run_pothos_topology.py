@@ -5,19 +5,15 @@ flowgraph runtime (models/flowgraph.py).
 The reference ships GUI dataflow graphs (reference: examples/*.pth) that
 require the absent Pothos framework; here the same JSON files load and run
 end-to-end — test_gen -> encoder -> modulator -> noise/rotate channel ->
-demodulator -> decoder -> chat sink — on the TPU-native block library.
+demodulator -> decoder -> chat sink — on this framework's block library.
 
-    JAX_PLATFORMS=cpu python examples/run_pothos_topology.py [path.pth]
+    python examples/run_pothos_topology.py [path.pth]
 """
 
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import jax
-
-jax.config.update("jax_platforms", "cpu")  # host demo; remove on a TPU pod
 
 from lora_phy_tpu.models import flowgraph as fg  # noqa: E402
 

@@ -1,15 +1,16 @@
-"""lora_phy_tpu — a TPU-native LoRa physical-layer modem framework.
+"""lora_phy_tpu — a LoRa physical-layer modem framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 reference C++ library (yakir1991/LoRa-SDR-Lightweight-Standalone-Library-):
 chirp modulation/demodulation, Gray coding, diagonal interleaving,
 Hamming FEC, whitening, PHY CRC, sync-word handling, CFO/timing
 estimation — expressed as pure functions over batched arrays, jit/pjit
-everywhere, with Pallas kernels on the hot dechirp-FFT-argmax path and
-mesh-sharded multi-channel / streaming demodulation.
+everywhere, with a planar (split re/im float32) dechirp-DFT-argmax hot
+path and mesh-sharded multi-channel / streaming demodulation. Its
+deployment target is an NVIDIA GPU (``python chip_smoke.py``).
 
 Layout:
-  ops/       numeric primitives (coding, chirp, detection, FFT backends, impairments)
+  ops/       numeric primitives (coding, chirp, detection, impairments)
   models/    modem chains (simple modem, full coded chain, streaming receiver)
   parallel/  device-mesh sharding, halo exchange for time-sharded streams
   utils/     params, profiles, IQ file IO, vector manifests

@@ -160,7 +160,7 @@ def write_csv(rows, path):
 
 
 # ---------------------------------------------------------------------------
-# Planar Monte Carlo path (TPU-scale sweeps; no complex64 — CLAUDE.md)
+# Planar Monte Carlo path (large batched sweeps, split re/im float32)
 # ---------------------------------------------------------------------------
 
 import functools
@@ -180,15 +180,13 @@ def _tone_tables(n: int):
 def _simulate_point_planar(key, snr_db, sf: int, cr: str, packets: int,
                            payload_len: int):
     """Planar twin of :func:`_simulate_point`: same model, split re/im
-    float32 arithmetic and the MXU DFT — runs on accelerators without
-    complex support and at TPU Monte Carlo scale.
+    float32 arithmetic and the matmul DFT, for large batched sweeps.
 
-    Two TPU reworks over the literal translation (round 5; same model,
-    same decisions): (a) the per-sample tone synthesis
+    Two reworks over the literal translation (same model, same
+    decisions): (a) the per-sample tone synthesis
     ``exp(j*2*pi*sym*i/n)`` is a ROW GATHER from an [n, n] cos/sin
-    table pair (symbols live in [0, n); transcendentals were the TX
-    bottleneck on this chip — the pure-gather TX lesson, ops/chirp.py),
-    and (b) detection is decision-only ``argmax_bins_planar`` (combined-
+    table pair (symbols live in [0, n); a gather instead of per-sample
+    transcendentals, as in the TX emitter, ops/chirp.py), and (b) detection is decision-only ``argmax_bins_planar`` (combined-
     matmul DFT + fused argmax) instead of the full ``detect_planar``
     metric set, whose power/fIndex/peak-phase outputs this Monte Carlo
     never reads but whose masked reductions cost several full-spectrum

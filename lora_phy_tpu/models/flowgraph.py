@@ -1,12 +1,12 @@
-"""Functional block-graph runtime — the TPU-native counterpart of the
+"""Functional block-graph runtime — the array-native counterpart of the
 reference's Pothos example topologies.
 
 The reference ships four Pothos GUI topologies (reference:
 examples/lora_simulation.pth, lora_sdr_client.pth, lora_sdr_relay.pth,
 rx_RN2483.pth — JSON graphs wiring ``/lora/*`` blocks, verified by parsing;
 SURVEY.md §1 L7) that cannot run anywhere: the Pothos framework and the
-upstream LoRa-SDR blocks are absent.  This module re-designs that layer the
-TPU way: blocks are *pure-ish functions over whole arrays* (one frame of
+upstream LoRa-SDR blocks are absent.  This module re-designs that layer
+for arrays: blocks are *pure-ish functions over whole arrays* (one frame of
 IQ per tick, not a sample-pump), the graph is a static DAG executed in
 topological order, and every DSP block delegates to the jitted batched
 pipelines in :mod:`lora_phy_tpu.models` / :mod:`lora_phy_tpu.ops`.

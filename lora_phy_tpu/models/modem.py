@@ -1,6 +1,6 @@
 """High-level LoRa modem — pure functions over batched arrays.
 
-TPU-first re-design of the reference's workspace API
+Array-first re-design of the reference's workspace API
 (reference: include/lora_phy/phy.hpp:102-156, src/phy/*.cpp). There is no
 mutable workspace: every function is a pure map from arrays + static
 ``LoraParams`` to arrays, jit/vmap/pjit-friendly. The per-symbol FFT loop
@@ -147,7 +147,7 @@ def _osr_phase_view(x, n: int, osr: int):
     return jnp.swapaxes(v, -1, -2)
 
 
-def _estimate(x, n: int, osr: int, window, tie_break_idx: bool, backend: str):
+def _estimate(x, n: int, osr: int, window, tie_break_idx: bool):
     """Per-frame CFO/TO estimation over the symbols contained in ``x``.
 
     Implements both estimator variants:
@@ -161,7 +161,7 @@ def _estimate(x, n: int, osr: int, window, tie_break_idx: bool, backend: str):
     view = _osr_phase_view(x, n, osr)                     # [..., S, osr, N]
     if window is not None:
         view = view * jnp.asarray(window)
-    det = detect(view, backend=backend)                   # fields [..., S, osr]
+    det = detect(view)                                    # fields [..., S, osr]
     p, idx = det.power, det.index
 
     maxp = jnp.max(p, axis=-1, keepdims=True)
@@ -204,21 +204,15 @@ def _shifted_rows(x, t_off, step: int):
     """Whole-row timing shift: ``y[..., j] = x[..., j + t_off]`` with zero
     fill, as a padded per-row ``dynamic_slice``.
 
-    TPU notes (all measured on the v5e for [8x8192, 8448] f32):
-
-    * an element-wise ``take_along_axis`` gather lowers to a scalar gather
-      and runs ~2 s; the vmapped per-row ``dynamic_slice`` lowers to a row
-      gather costing ~4 us per row (274 ms) — 35x faster;
-    * a log2(2*step) barrel shifter (static slice + ``where`` per bit of
-      ``t_off``) runs 91 ms, row-count independent — 3x faster again when
-      the shift actually executes.  It is NOT used here because callers
-      wrap this in the zero-offset ``lax.cond`` fast path and this
-      backend reserves HBM for a cond branch's temporaries whether or not
-      the branch runs: the barrel's 9 full-size where-stage buffers cost
-      ~4% end-to-end demod throughput as dead code (and OOM the bench
-      batch when both planes are stacked), while the dynamic-slice
-      branch's single padded temp fits.  Revisit if a caller appears that
-      shifts unconditionally at large row counts.
+    A vmapped per-row ``dynamic_slice`` lowers to a row gather; an
+    element-wise ``take_along_axis`` would lower to a scalar gather. A
+    log2(2*step) barrel shifter (static slice + ``where`` per bit of
+    ``t_off``) is the other row-count-independent form; it is not used
+    because callers wrap this in the zero-offset ``lax.cond`` fast path
+    and a cond branch's temporaries are reserved whether or not the
+    branch runs (the barrel holds 9 full-size where-stage buffers, the
+    dynamic slice one padded temp). Which form is fastest on the GPU is
+    not measured (ROADMAP A6).
     """
     count = x.shape[-1]
     pad_width = [(0, 0)] * (x.ndim - 1) + [(step, step)]
@@ -305,9 +299,8 @@ def _sync_from_symbols(idx0, idx1, sf: int):
 # Demodulate (working, dechirped-input path)
 # ---------------------------------------------------------------------------
 
-@partial(jax.jit, static_argnames=("params", "backend"))
-def demodulate(samples, params: LoraParams, backend: str = "xla",
-               known_offsets=None) -> DemodResult:
+@partial(jax.jit, static_argnames=("params",))
+def demodulate(samples, params: LoraParams, known_offsets=None) -> DemodResult:
     """Demodulate already-dechirped samples — the reference's working
     contract (``lora_demodulate``, src/phy/LoRaDemod.cpp:49-195).
 
@@ -338,9 +331,7 @@ def demodulate(samples, params: LoraParams, backend: str = "xla",
     # Two-symbol CFO/TO estimation with deterministic tie-break
     if known_offsets is None:
         cfo, time_offset = _estimate(
-            x[..., : 2 * step], n, osr, window, tie_break_idx=True,
-            backend=backend,
-        )
+            x[..., : 2 * step], n, osr, window, tie_break_idx=True)
     else:
         batch = x.shape[:-1]
         cfo = jnp.broadcast_to(jnp.asarray(known_offsets[0], jnp.float32), batch)
@@ -357,7 +348,7 @@ def demodulate(samples, params: LoraParams, backend: str = "xla",
         rot = rot * jnp.asarray(window)       # fold window into the [N] vector
     fft_in = sym * rot[..., None, :]
 
-    det = detect(fft_in, backend=backend)
+    det = detect(fft_in)
     syms = det.index.astype(jnp.uint16)                            # [..., S]
     sync = _sync_from_symbols(
         syms[..., 0].astype(jnp.int32), syms[..., 1].astype(jnp.int32), params.sf
@@ -369,13 +360,13 @@ def demodulate(samples, params: LoraParams, backend: str = "xla",
 # estimate / compensate (public API parity with phy.cpp)
 # ---------------------------------------------------------------------------
 
-@partial(jax.jit, static_argnames=("params", "backend"))
-def estimate_offsets(samples, params: LoraParams, backend: str = "xla"):
+@partial(jax.jit, static_argnames=("params",))
+def estimate_offsets(samples, params: LoraParams):
     """CFO/TO estimation over whole symbols (reference: src/phy/phy.cpp:78-145;
     note this variant has no argmax-index tie-break across osr phases)."""
     window = _window_table(params)
     return _estimate(samples, params.n, params.osr, window,
-                     tie_break_idx=False, backend=backend)
+                     tie_break_idx=False)
 
 
 @partial(jax.jit, static_argnames=("params",))
@@ -419,9 +410,9 @@ def estimate_sro(samples, params: LoraParams):
 # Integrated demodulator (quirk-compat port of phy.cpp demodulate)
 # ---------------------------------------------------------------------------
 
-@partial(jax.jit, static_argnames=("params", "backend", "quirk_compat"))
+@partial(jax.jit, static_argnames=("params", "quirk_compat"))
 def demodulate_integrated(
-    iq, params: LoraParams, backend: str = "xla", quirk_compat: bool = False
+    iq, params: LoraParams, quirk_compat: bool = False
 ) -> DemodResult:
     """Integrated demodulation of raw chirped IQ
     (reference: src/phy/phy.cpp:178-239): per-symbol dechirp with the base
@@ -452,7 +443,7 @@ def demodulate_integrated(
         est_input = est_input.reshape(*x.shape[:-1], 2, step) * down_os
         est_input = est_input.reshape(*x.shape[:-1], 2 * step)
     cfo, time_offset = _estimate(
-        est_input, n, osr, window, tie_break_idx=False, backend=backend
+        est_input, n, osr, window, tie_break_idx=False
     )
 
     t_off = _round_half_away(time_offset).astype(jnp.int32)
@@ -466,7 +457,7 @@ def demodulate_integrated(
         rot = rot * jnp.asarray(window)       # fold window into the [N] vector
     fft_in = sym * rot[..., None, :]
 
-    det = detect(fft_in, backend=backend)
+    det = detect(fft_in)
     syms = det.index.astype(jnp.uint16)
     sync = _sync_from_symbols(
         syms[..., 0].astype(jnp.int32), syms[..., 1].astype(jnp.int32), params.sf

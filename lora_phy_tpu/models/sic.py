@@ -23,8 +23,8 @@ in power order:
 Decision-directed reconstruction is exact when the symbol decisions are
 right, so cancellation depth is limited only by the offset-estimate
 residuals (CFO to ~1e-3 bin from the preamble slope, timing to the
-integer sample grid). Everything is planar float32 — the whole loop runs
-on complex-free TPU backends.
+integer sample grid). Everything is planar float32, and the joint gain
+solve's Gram products run at ``Precision.HIGHEST``.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from .stream import frame_modulate_planar
 from .sync import block_rows, receive_block_planar
 
 _TWO_PI = 6.283185307179586
+_mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 
 @partial(jax.jit, static_argnames=("params", "preamble_len"))
@@ -144,6 +145,18 @@ def _cfo_slope_planar(yr, yi, er, ei, step: int):
     return jnp.arctan2(jnp.sum(di), jnp.sum(dr)) / jnp.float32(_TWO_PI)
 
 
+@jax.jit
+def gram_planar(er_all, ei_all, yr, yi):
+    """Normal-equation sums of the joint gain solve for templates
+    ``E = er + j ei`` ([K, T] planes) against ``y = yr + j yi`` ([T]):
+    ``(Re E^H E, Im E^H E, Re E^H y, Im E^H y)``."""
+    ar = _mm(er_all, er_all.T) + _mm(ei_all, ei_all.T)   # Re(E^H E)
+    ai = _mm(er_all, ei_all.T) - _mm(ei_all, er_all.T)   # Im(E^H E)
+    br = _mm(er_all, yr) + _mm(ei_all, yi)               # Re(E^H y)
+    bi = _mm(er_all, yi) - _mm(ei_all, yr)               # Im(E^H y)
+    return ar, ai, br, bi
+
+
 def refine_sic_planar(xr0, xi0, frames, params: LoraParams,
                       preamble_len: int = 8, n_iters: int = 3,
                       n_payload_symbols: int | None = None,
@@ -193,14 +206,6 @@ def refine_sic_planar(xr0, xi0, frames, params: LoraParams,
         return jnp.stack(ers), jnp.stack(eis)         # [K, T]
 
     @jax.jit
-    def _gram(er_all, ei_all, yr, yi):
-        ar = er_all @ er_all.T + ei_all @ ei_all.T    # Re(E^H E)
-        ai = er_all @ ei_all.T - ei_all @ er_all.T    # Im(E^H E)
-        br = er_all @ yr + ei_all @ yi                # Re(E^H y)
-        bi = er_all @ yi - ei_all @ yr                # Im(E^H y)
-        return ar, ai, br, bi
-
-    @jax.jit
     def _subtract(yr, yi, er_all, ei_all, g_re, g_im):
         sr = jnp.sum(g_re * er_all - g_im * ei_all, axis=0)
         si = jnp.sum(g_re * ei_all + g_im * er_all, axis=0)
@@ -208,7 +213,7 @@ def refine_sic_planar(xr0, xi0, frames, params: LoraParams,
 
     def solve(er_all, ei_all):
         ar, ai, br, bi = (np.asarray(v) for v in
-                          _gram(er_all, ei_all, yr, yi))
+                          gram_planar(er_all, ei_all, yr, yi))
         a = ar + 1j * ai
         return np.linalg.solve(
             a + 1e-9 * np.trace(a).real / k * np.eye(k), br + 1j * bi)

@@ -2,7 +2,7 @@
 
 The reference decodes hard argmax bins only (syndrome decoding,
 LoRaCodes.hpp:250-334; detect-only parity for CR 4/5-4/6) — no soft path
-exists upstream. This module adds one, TPU-first: per-symbol max-log bit
+exists upstream. This module adds one: per-symbol max-log bit
 LLRs come straight out of the demodulator's |DFT|² spectra
 (ops.planar.demodulate_spectrum_planar) as masked max-reductions, ride
 the *same* diagonal-deinterleave gather maps as the hard path
@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -27,6 +28,8 @@ from ..ops import coding
 from .coded import CodedConfig, _fec_encode
 
 _NEG = jnp.float32(-3.4e38)
+_mm = functools.partial(jnp.matmul, preferred_element_type=jnp.float32,
+                        precision=jax.lax.Precision.HIGHEST)
 
 
 @functools.lru_cache(maxsize=64)
@@ -94,7 +97,7 @@ def ml_decode(cw_llrs, cr: int):
     """[..., ncw, nbits] codeword-bit LLRs -> ([..., ncw] nibbles,
     [..., ncw] correlation margins) via the 16-entry ML codebook."""
     cb = jnp.asarray(_codebook(cr))
-    scores = jnp.matmul(jnp.asarray(cw_llrs), cb)
+    scores = _mm(jnp.asarray(cw_llrs), cb)
     nibbles = jnp.argmax(scores, axis=-1).astype(jnp.uint8)
     top2 = jnp.sort(scores, axis=-1)[..., -2:]
     return nibbles, (top2[..., 1] - top2[..., 0])
@@ -142,7 +145,7 @@ def hamming84_ml_decode(mag2, scale: int = 1):
     The hard path takes an unconstrained argmax over all N bins and then
     syndrome-corrects (modem.decode); here the argmax is CONSTRAINED to
     the 16 bins that carry valid codewords — one ``[.., N] @ [N, 16]``
-    MXU matmul (masked pick, no gathers) + argmax — so noise peaks at
+    matmul (masked pick, no gathers) + argmax — so noise peaks at
     non-codeword bins are redirected to the best valid codeword instead
     of relying on single-bit syndrome correction. The classic soft-
     decision gain for the chain the reference actually ships (no soft
@@ -153,9 +156,8 @@ def hamming84_ml_decode(mag2, scale: int = 1):
     mag2 = jnp.asarray(mag2)
     n = mag2.shape[-1]
     s = mag2.shape[-2] - (mag2.shape[-2] % 2)
-    scores = jnp.matmul(mag2[..., :s, :],
-                        jnp.asarray(_hamming84_bin_onehot(n, scale)),
-                        preferred_element_type=jnp.float32)
+    scores = _mm(mag2[..., :s, :],
+                 jnp.asarray(_hamming84_bin_onehot(n, scale)))
     nibbles = jnp.argmax(scores, axis=-1).astype(jnp.uint8)
     return coding.nibbles_to_bytes(nibbles)
 

@@ -6,7 +6,7 @@ in memory and has no preamble/frame detection at all (SURVEY.md §5.7: the
 only carried state is the modulator's phase accumulator). This module adds
 the standard-LoRa frame structure the reference only *documents*
 (reference: scripts/create_golden_vectors.cpp:95-140 — preamble upchirps,
-2 sync upchirps, 2.25 downchirps, payload) and a TPU-native synchroniser:
+2 sync upchirps, 2.25 downchirps, payload) and a vectorized synchroniser:
 
 * TX :func:`frame_modulate` — preamble + sync + 2.25 downchirps + payload;
 * RX :func:`frame_sync` — the classic two-sided dechirp detector, fully
@@ -85,7 +85,7 @@ def frame_modulate(symbols, params: LoraParams, preamble_len: int = 8,
 def frame_modulate_planar(symbols, params: LoraParams, preamble_len: int = 8,
                           amplitude: float = 1.0, sync_symbols=None):
     """Planar (re, im float32) twin of :func:`frame_modulate` — the full
-    frame synthesizer on complex-free TPU backends. Planes are bit-exact
+    frame synthesizer with no complex dtype. Planes are bit-exact
     with ``split_complex(frame_modulate(...))`` (same lattice modulator,
     same float64 host oracle for the 2.25-symbol downchirp).
 
@@ -363,7 +363,7 @@ class BatchStreamDemodulator:
     window extraction, CFO derotation, dechirp and demod of up to
     ``max_frames`` frames run as ONE device program per block
     (models/sync.receive_block_planar) on planar float32 planes — the
-    TPU-deployment replacement for :class:`StreamDemodulator`'s serial
+    deployment replacement for :class:`StreamDemodulator`'s serial
     per-frame host loop. The host keeps only the tail carry.
 
     Feed fixed-size blocks (a varying block size retraces the jit).

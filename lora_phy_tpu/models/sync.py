@@ -2,7 +2,7 @@
 
 The reference has no frame sync at all (SURVEY.md §5.7: whole-buffer,
 frame-aligned input assumed); models/stream.py adds the classic two-sided
-dechirp detector. This module is its TPU-native core: the entire scan —
+dechirp detector. This module is its device-side core: the entire scan —
 symbol-window dechirp (up and down), FFT bins, preamble run-length
 detection, downchirp-section pairing, timing/CFO split and validity — runs
 as ONE jit over ``[..., channels, windows]``, with no per-window host
@@ -16,8 +16,8 @@ serial scan:
 Host code then reads the tiny per-window candidate arrays once and picks
 frames — frame bookkeeping is the only thing left off-device.
 
-Works on planar (re, im) float32 planes, so the synchroniser compiles on
-complex-free TPU PJRTs (the deployment reality, CLAUDE.md).
+Works on planar (re, im) float32 planes, like the rest of the deployment
+path (ops/planar.py).
 """
 
 from __future__ import annotations
@@ -35,8 +35,8 @@ from ..ops.planar import argmax_bins_planar
 from ..utils.params import LoraParams
 
 # NOTE: no module-level jnp constants — creating a device array at import
-# time initializes the default backend before CLI entry points can pin CPU
-# (runners/_cli.use_cpu), silently undoing the pin.
+# time initializes the default backend before a program can configure JAX
+# (the test suite's CPU pin, tests/test_runners.py).
 
 
 class SyncScan(NamedTuple):

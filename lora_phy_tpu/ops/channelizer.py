@@ -6,10 +6,11 @@ critically-sampled sub-channels (spacing fs/K) with a polyphase FFT filter
 bank, producing the ``[channels, T/K]`` tensor the batched/sharded
 demodulators consume (parallel/stream.py).
 
-TPU mapping: the polyphase FIR is one einsum over a strided window view
-(MXU-shaped: [frames, taps, K] x [taps, K]) and the K-point channel DFT is
-a dense matmul — no sequential filtering state, so the whole bank is one
-fused jit program. The prototype filter is a windowed-sinc lowpass
+Mapping: the polyphase FIR is one einsum over a strided window view
+([frames, taps, K] x [taps, K]) and the K-point channel DFT is a dense
+matmul — no sequential filtering state, so the whole bank is one fused jit
+program. Every product runs at ``Precision.HIGHEST`` (:func:`_einsum`,
+:func:`_mm`). The prototype filter is a windowed-sinc lowpass
 designed at trace time in NumPy.
 
 Channel k is centred at frequency ``k * fs / K`` (k interpreted mod K, so
@@ -24,6 +25,11 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+_HIGHEST = jax.lax.Precision.HIGHEST
+_einsum = functools.partial(jnp.einsum, precision=_HIGHEST)
+_mm = functools.partial(jnp.matmul, preferred_element_type=jnp.float32,
+                        precision=_HIGHEST)
 
 
 @functools.lru_cache(maxsize=16)
@@ -72,13 +78,13 @@ def channelize(x, k: int, taps_per_branch: int = 7):
     w = jnp.stack(views, axis=-2)                       # [..., frames, taps, K]
 
     # polyphase FIR: branch-wise dot over taps (real h x complex x)
-    fir = jnp.einsum("...ftk,tk->...fk", w, h)
+    fir = _einsum("...ftk,tk->...fk", w, h)
 
     # channel DFT across the K branches (IDFT convention so channel k sits
     # at +k*fs/K); dense matmul, K is small
     kk = np.arange(k)
     dft = np.exp(-2j * np.pi * np.outer(kk, kk) / k).astype(np.complex64)
-    chans = jnp.einsum("...fk,ck->...cf", fir, jnp.asarray(dft))
+    chans = _einsum("...fk,ck->...cf", fir, jnp.asarray(dft))
     return chans                                        # [..., K, frames]
 
 
@@ -109,7 +115,7 @@ def synthesize_channels(signals, k: int, taps_per_branch: int = 7):
     # sum_c X_c[m] * e^{+2pi j c r / K} (carrier phase at sample m*K + r)
     cc = np.arange(k)
     idft = np.exp(2j * np.pi * np.outer(cc, cc) / k).astype(np.complex64)
-    u = jnp.einsum("...cf,cr->...fr", signals, jnp.asarray(idft))
+    u = _einsum("...cf,cr->...fr", signals, jnp.asarray(idft))
 
     # interpolating polyphase FIR along frames, branch-wise; symmetric pad
     # mirrors the analysis bank so group delays cancel
@@ -124,7 +130,7 @@ def synthesize_channels(signals, k: int, taps_per_branch: int = 7):
     w = jnp.stack(views, axis=-2)                          # [..., F, taps, K]
     # analysis filters branch r with h[:, r] forward in time; synthesis
     # uses the time-reversed taps so the cascade is h*h (linear-phase)
-    y = jnp.einsum("...ftk,tk->...fk", w, h[::-1])
+    y = _einsum("...ftk,tk->...fk", w, h[::-1])
 
     return y.reshape(*y.shape[:-2], frames * k)            # commutate
 
@@ -156,17 +162,13 @@ def _group_size(k: int, taps_per_branch: int) -> int:
     """Frames per matmul row for the grouped form.
 
     The output corner-turn ``[.., n_groups, 2K, G] -> [.., 2K, F]``
-    moves rows of exactly G floats, and only a FULL 128-lane row
-    transposes at speed on this chip: at the bench shape (K=8, taps=7,
-    33.5M samples) G=128 runs 9.91 ms where G=122 takes 22.89 and G=64
-    takes 23.23 (tools/probe_channelizer2.py, chip-measured round 4) —
-    so G is rounded UP to a multiple of 128 whenever the block-Toeplitz
-    bank stays under a 128 MB budget (it is dense zeros-padded: bank
-    bytes ~ 16*K^2*G^2, so big-K banks fall back to the unaligned
-    ``G*K ~ 1024`` target and stay transpose-bound but correct). FLOPs
-    inflate ~(G+taps-1)/taps x over the useful MACs — ~19x at
-    K=8/taps=7 — and the MXU still wins 3.2x end-to-end over the
-    per-frame form. ``G >= taps - 1`` keeps a row's window inside two
+    moves rows of exactly G floats, so G is rounded UP to a multiple of
+    128 whenever the block-Toeplitz bank stays under a 128 MB budget (it
+    is dense zeros-padded: bank bytes ~ 16*K^2*G^2, so big-K banks fall
+    back to the unaligned ``G*K ~ 1024`` target). FLOPs inflate
+    ~(G+taps-1)/taps x over the useful MACs — ~19x at K=8/taps=7; the
+    choice of G on the GPU is not measured yet
+    (tools/probe_channelizer2.py sweeps it). ``G >= taps - 1`` keeps a row's window inside two
     consecutive ``G*K`` reshaped rows; the >= 1 clamp guards
     ``taps_per_branch=1`` with ``k > 1024`` (both terms hit 0 and the
     group count would divide-by-zero; ``--taps`` is user-settable via
@@ -202,8 +204,8 @@ def _grouped_bank_split(k: int, taps_per_branch: int, g: int):
     columns PERMUTED channel-major — ``(plane*K + c, g)`` instead of
     ``(g, plane*K + c)`` — so the matmul result reshapes to
     ``[.., n_groups, 2K, G]`` and the channel corner-turn moves
-    contiguous G-float rows instead of single floats (the transpose fix
-    measured in tools/probe_channelizer2.py)."""
+    contiguous G-float rows instead of single floats
+    (tools/probe_channelizer2.py)."""
     big = _grouped_bank_planar(k, taps_per_branch, g)
     r = (g + taps_per_branch - 1) * k
     perm = np.arange(g * 2 * k).reshape(g, 2 * k).T.reshape(-1)
@@ -212,7 +214,7 @@ def _grouped_bank_split(k: int, taps_per_branch: int, g: int):
 
 
 def channelize_planar(xr, xi, k: int, taps_per_branch: int = 7):
-    """Planar twin of :func:`channelize` for complex-free TPU backends:
+    """Planar twin of :func:`channelize`:
     ``(re, im) [..., T]`` float32 -> ``(re, im) [..., K, T//K]``.
 
     FIR, channel DFT and both output parts are folded into one matmul
@@ -221,23 +223,13 @@ def channelize_planar(xr, xi, k: int, taps_per_branch: int = 7):
     output columns permuted channel-major, re-plane + im-plane products
     summed).  vs the per-frame im2col (``[F, 2*taps*K] @ [2*taps*K,
     2K]``) this cuts the im2col overlap blow-up from ``taps``x to
-    ``(G+taps-1)/G``x and widens the contraction/output from 112x16
-    (11% MXU tile fill) to ~1024x2048; the channel-major column
-    permutation turns the final [F, 2K] -> [2K, F] corner-turn (26 of
-    31 ms with an 8-float minor!) into a contiguous-G-row transpose.
-    Chip-measured at the bench shape (K=8, 33.5M samples, v5e, 24-iter
-    amortized): 0.54 (per-frame) -> 1.10 (G=26 combined matmul) ->
-    4.20 Gsps (this form at G=128, full-bench capture
-    logs/bench_r4_capture.json; G must be a FULL 128-lane multiple —
-    122 or 64 lose 2.3x, see _group_size;
-    tools/probe_channelizer{,2}.py hold the stage-by-stage
-    evidence).  The per-frame
-    form itself was 3x the staged einsum (tiny contractions lower to VPU
-    reductions).  Same windows / prototype / alignment as the complex
-    path (gated by tests/test_channelizer.py, atol 1e-5: the grouped
-    matmul only reorders the f32 sums).  Note TPU f32 matmuls run at MXU
-    (bf16-class) input precision by default — inconsequential below the
-    filter's ~50 dB stopband."""
+    ``(G+taps-1)/G``x and widens the contraction/output from 112x16 to
+    ~1024x2048; the channel-major column permutation turns the final
+    [F, 2K] -> [2K, F] corner-turn into a contiguous-G-row transpose
+    (tools/probe_channelizer{,2}.py time the variants).  Same windows /
+    prototype / alignment as the complex path (gated by
+    tests/test_channelizer.py, atol 1e-5: the grouped matmul only
+    reorders the f32 sums)."""
     if taps_per_branch % 2 == 0:
         raise ValueError("taps_per_branch must be odd for aligned output")
     xr = jnp.asarray(xr)
@@ -265,12 +257,10 @@ def channelize_planar(xr, xi, k: int, taps_per_branch: int = 7):
             [x0, x1[..., : (taps_per_branch - 1) * k]], axis=-1)
 
     top, bot = _grouped_bank_split(k, taps_per_branch, g)
-    out = (jnp.matmul(group_rows(xr), jnp.asarray(top),
-                      preferred_element_type=jnp.float32)
-           + jnp.matmul(group_rows(xi), jnp.asarray(bot),
-                        preferred_element_type=jnp.float32))
+    out = (_mm(group_rows(xr), jnp.asarray(top))
+           + _mm(group_rows(xi), jnp.asarray(bot)))
     # channel-major columns: [.., n_groups, 2K, G] -> [.., 2K, n_groups, G]
-    # moves contiguous G-float rows (the probe-measured transpose fix)
+    # moves contiguous G-float rows
     v = out.reshape(*lead, n_groups, 2 * k, g)
     v = jnp.swapaxes(v, -3, -2).reshape(*lead, 2 * k, f_pad)[..., :frames]
     return v[..., :k, :], v[..., k:, :]                   # [..., K, F] x2
@@ -293,9 +283,9 @@ def synthesize_channels_planar(sr, si, k: int, taps_per_branch: int = 7):
     cc = np.arange(k)
     er = jnp.asarray(np.cos(2 * np.pi * np.outer(cc, cc) / k).astype(np.float32))
     ei = jnp.asarray(np.sin(2 * np.pi * np.outer(cc, cc) / k).astype(np.float32))
-    ur = jnp.einsum("...cf,cr->...fr", sr, er) - jnp.einsum(
+    ur = _einsum("...cf,cr->...fr", sr, er) - _einsum(
         "...cf,cr->...fr", si, ei)
-    ui = jnp.einsum("...cf,cr->...fr", sr, ei) + jnp.einsum(
+    ui = _einsum("...cf,cr->...fr", sr, ei) + _einsum(
         "...cf,cr->...fr", si, er)
 
     h = jnp.asarray(_prototype(k, taps_per_branch)) * k   # [taps, K]
@@ -310,7 +300,7 @@ def synthesize_channels_planar(sr, si, k: int, taps_per_branch: int = 7):
         )
         views = [up[..., i: i + frames, :] for i in range(taps_per_branch)]
         w = jnp.stack(views, axis=-2)                      # [..., F, taps, K]
-        y = jnp.einsum("...ftk,tk->...fk", w, h[::-1])
+        y = _einsum("...ftk,tk->...fk", w, h[::-1])
         return y.reshape(*y.shape[:-2], frames * k)
 
     return fir(ur), fir(ui)

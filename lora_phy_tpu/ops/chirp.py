@@ -3,7 +3,7 @@
 The reference generates chirps with a sequential per-sample float32
 phase/frequency accumulator (reference: include/lora_phy/ChirpGenerator.hpp:23-50)
 and a phase-continuity carry across symbols (reference: src/phy/LoRaMod.cpp:8-43).
-Sequential carries are hostile to TPUs, so this module replaces them with a
+Sequential carries do not vectorize, so this module replaces them with a
 closed form (SURVEY.md §5.7c) built on an exact integer lattice:
 
 Let ``M = N*osr`` (steps per sweep) and ``fStep = 2*pi*bw_scale/(N*osr^2)``.
@@ -229,8 +229,8 @@ def _mod_chirps(symbols, n: int, osr: int, bw_scale_x8: int, ampl,
 def _mod_chirps_planar(symbols, n: int, osr: int, bw_scale_x8: int, ampl,
                        continuous: bool = False, phase_carry: bool = True):
     """Planar (re, im float32) twin of :func:`_mod_chirps` — the TX path
-    for accelerators without complex support (and the TPU-native layout
-    regardless). Bit-identical planes to the complex emitter.
+    on split float32 planes (the deployment layout). Bit-identical planes
+    to the complex emitter.
 
     Dispatches to the pure-gather table emitter when the
     :func:`_mod_chirp_tables` budget allows (the hot TX path: one row
@@ -292,7 +292,7 @@ def modulate_symbols_planar(symbols, sf: int, osr: int, bw_scale: float,
                             phase_carry: bool = True):
     """Planar twin of :func:`modulate_symbols` — the full ``lora_modulate``
     TX chain (src/phy/LoRaMod.cpp:8-43) emitting (re, im) float32 planes so
-    the modulator runs on complex-free TPU backends. Planes are bit-exact
+    the modulator runs with no complex dtype. Planes are bit-exact
     with ``split_complex(modulate_symbols(...))``.
 
     [..., S] -> ((re, im) each [..., (S+2)*N*osr] float32).

@@ -1,4 +1,4 @@
-"""Bit-exact LoRa coding primitives, vectorized for TPU.
+"""Bit-exact LoRa coding primitives, vectorized for accelerators.
 
 Re-designs of the reference's scalar bit-twiddling loops
 (reference: include/lora_phy/LoRaCodes.hpp) as array programs:

@@ -2,7 +2,12 @@
 
 Replaces the reference's per-symbol scalar scan loop
 (reference: include/lora_phy/LoRaDetector.hpp:39-74) with one batched FFT
-over a ``[..., symbols, N]`` tensor and vectorized argmax/metrics.
+over a ``[..., symbols, N]`` tensor and vectorized argmax/metrics. The FFT
+is XLA's own ``jnp.fft.fft`` (cuFFT on the GPU), standing in for the
+reference's statically planned KISS FFT (include/lora_phy/kissfft.hh); it
+returns the unnormalised DFT, matching kissfft's convention. This complex
+path is the plain reference the planar pipeline (ops/planar.py) is tested
+against.
 
 Semantics preserved exactly:
 * argmax over |X|^2 with first-maximum (lowest-index) tie-break —
@@ -22,8 +27,6 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 
-from .fft import fft as _fft
-
 
 class Detection(NamedTuple):
     """Per-symbol detector outputs (leading dims = batch/symbol axes)."""
@@ -36,10 +39,10 @@ class Detection(NamedTuple):
     spectrum: jnp.ndarray    # full FFT output [..., N]
 
 
-def detect(fft_in, backend: str = "xla") -> Detection:
+def detect(fft_in) -> Detection:
     """Run the detector over the last axis of ``fft_in`` ([..., N] complex64)."""
     n = fft_in.shape[-1]
-    spectrum = _fft(fft_in, backend=backend)
+    spectrum = jnp.fft.fft(fft_in)
     return detect_from_spectrum(spectrum, n)
 
 
@@ -48,7 +51,7 @@ def detect_from_spectrum(spectrum, n: int) -> Detection:
     index = jnp.argmax(mag2, axis=-1).astype(jnp.int32)
     max_value = jnp.take_along_axis(mag2, index[..., None].astype(jnp.int32), axis=-1)[..., 0]
     # The reference accumulates |X|^2 in double (LoRaDetector.hpp:45-52);
-    # float32 keeps TPU-native dtype — power metrics differ only in far
+    # float32 keeps the device dtype — power metrics differ only in far
     # decimals and symbol decisions are unaffected (gated by golden tests).
     total = jnp.sum(mag2, axis=-1)
 

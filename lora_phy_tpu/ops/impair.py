@@ -122,7 +122,7 @@ def apply_multipath(samples, taps):
 
 def apply_multipath_planar(xr, xi, taps_re, taps_im):
     """Planar float32 twin of :func:`apply_multipath` (same math on
-    (re, im) planes — runs on complex-free TPU backends)."""
+    (re, im) planes, no complex dtype)."""
     taps_re = jnp.asarray(taps_re, jnp.float32)
     taps_im = jnp.asarray(taps_im, jnp.float32)
     yr = taps_re[0] * xr - taps_im[0] * xi

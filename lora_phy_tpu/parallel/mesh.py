@@ -1,7 +1,7 @@
 """Device-mesh construction for multi-channel / streaming demodulation.
 
 The reference is single-threaded scalar C++ with no parallel axes
-(SURVEY.md §2.6); the TPU-native scale-out axes are:
+(SURVEY.md §2.6); the scale-out axes are:
 
 * ``channel`` — independent radio channels (embarrassingly parallel)
 * ``time``   — consecutive blocks of one continuous stream, with

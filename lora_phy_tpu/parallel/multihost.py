@@ -1,16 +1,15 @@
 """Multi-host scale-out scaffolding.
 
 The reference has no distributed layer at all (SURVEY.md §2.6/§5.8). The
-TPU-native recipe: every host runs the same program, ``jax.distributed``
-wires the hosts into one runtime, the global ``(channel, time)`` mesh
-spans all chips, and per-host ingest feeds globally-sharded arrays via
-``jax.make_array_from_process_local_data``. Collectives then ride ICI
-within a slice and DCN across hosts — the streaming demodulator
+recipe: every host runs the same program, ``jax.distributed`` wires the
+hosts into one runtime, the global ``(channel, time)`` mesh spans all
+devices, and per-host ingest feeds globally-sharded arrays via
+``jax.make_array_from_process_local_data``. The streaming demodulator
 (parallel/stream.py) is already written against the mesh axes, so the
-same code runs 1-chip, 1-host and N-host unchanged.
+same code runs on one device, one host and N hosts unchanged.
 
-On this single-chip image the path is exercised by the CPU virtual mesh
-(tests/test_parallel.py) and the driver's multichip dry run.
+The path is exercised by the CPU virtual mesh and two CPU processes
+(tests/test_parallel.py, tests/test_multihost.py).
 """
 
 from __future__ import annotations

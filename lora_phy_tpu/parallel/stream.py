@@ -1,6 +1,6 @@
 """Time-sharded continuous-stream demodulation with overlap-save halos.
 
-TPU-native replacement for the reference's whole-buffer-in-memory
+Sharded replacement for the reference's whole-buffer-in-memory
 demodulator (``base = s*step`` absolute indexing, reference:
 src/phy/LoRaDemod.cpp:141-149; sequence-scaling analysis in SURVEY.md §5.7):
 
@@ -120,8 +120,8 @@ def _stream_demod_core(x, params: LoraParams, time_axis: str,
     rate = (-jnp.float32(_TWO_PI) * cfo / jnp.float32(n)).astype(jnp.float32)
 
     # --- shifted symbol windows from the extended (haloed) buffer ---------
-    # contiguous per-row dynamic slices instead of element gathers (the
-    # same 35x TPU consideration as modem._shifted_rows)
+    # contiguous per-row dynamic slices instead of element gathers (as in
+    # modem._shifted_rows)
     total = t_size * L                      # global stream length
 
     def slice_rows(offset):
@@ -153,16 +153,14 @@ def _stream_demod_core(x, params: LoraParams, time_axis: str,
     # the global-symbol-index start term is constant WITHIN a symbol, so it
     # contributes only a unimodular per-symbol phase — invisible to the
     # magnitude-based detector (modem._derotation_vector documents and
-    # drops it on the single-device path; the [.., S, 1]-rank broadcast it
-    # needed is also a layout-rotation trigger on this chip, CLAUDE.md).
+    # drops it on the single-device path).
     # Global-index CORRECTNESS still holds: shards agree because the
     # surviving ramp exp(j*rate*i) is index-free within the window.
     idx = finish(sym, rate)
     return idx.astype(jnp.uint16), cfo, time_offset
 
 
-def _stream_demod_local(x_local, params: LoraParams, backend: str,
-                        time_axis: str):
+def _stream_demod_local(x_local, params: LoraParams, time_axis: str):
     """Complex per-shard body: thin closures over the shared core."""
     n, osr = params.n, params.osr
     window = _window_table(params)
@@ -173,8 +171,7 @@ def _stream_demod_local(x_local, params: LoraParams, backend: str,
         )
 
     def estimate(head):
-        return _estimate(head, n, osr, window, tie_break_idx=True,
-                         backend=backend)
+        return _estimate(head, n, osr, window, tie_break_idx=True)
 
     def finish(sym, rate):
         ph = rate[..., None] * jnp.arange(n, dtype=jnp.float32)   # [..., N]
@@ -182,7 +179,7 @@ def _stream_demod_local(x_local, params: LoraParams, backend: str,
         fft_in = sym * rot
         if window is not None:
             fft_in = fft_in * jnp.asarray(window)
-        return detect(fft_in, backend=backend).index
+        return detect(fft_in).index
 
     return _stream_demod_core(x_local, params, time_axis,
                               absmax, estimate, finish)
@@ -191,9 +188,8 @@ def _stream_demod_local(x_local, params: LoraParams, backend: str,
 def _stream_demod_local_planar(xr, xi, params: LoraParams, time_axis: str,
                                comm: bool = True):
     """Planar (re, im float32) per-shard body — the same core on split
-    planes stacked along a leading axis, so the time-sharded receiver
-    compiles on complex-free TPU PJRTs (the deployment reality,
-    CLAUDE.md)."""
+    planes stacked along a leading axis — the deployment layout of the
+    time-sharded receiver."""
     n, osr = params.n, params.osr
     window = _window_table(params)
 
@@ -254,9 +250,8 @@ def demodulate_stream_planar(xr, xi, params: LoraParams, mesh: Mesh,
     return syms, sync, cfo, time_offset
 
 
-@partial(jax.jit, static_argnames=("params", "mesh", "backend"))
-def demodulate_stream(samples, params: LoraParams, mesh: Mesh,
-                      backend: str = "auto"):
+@partial(jax.jit, static_argnames=("params", "mesh"))
+def demodulate_stream(samples, params: LoraParams, mesh: Mesh):
     """Demodulate a dechirped continuous stream sharded over
     ``(channel, time)``.
 
@@ -267,8 +262,7 @@ def demodulate_stream(samples, params: LoraParams, mesh: Mesh,
     with symbols sharded like the input.
     """
     fn = shard_map(
-        partial(_stream_demod_local, params=params, backend=backend,
-                time_axis=TIME_AXIS),
+        partial(_stream_demod_local, params=params, time_axis=TIME_AXIS),
         mesh=mesh,
         in_specs=P(CHANNEL_AXIS, TIME_AXIS),
         out_specs=(P(CHANNEL_AXIS, TIME_AXIS), P(CHANNEL_AXIS), P(CHANNEL_AXIS)),

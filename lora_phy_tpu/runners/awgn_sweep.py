@@ -13,11 +13,12 @@ import sys
 
 from ..models import awgn
 from ..utils.profiles import DEFAULT_PROFILES, load_profiles
-from ._cli import parse_flags, use_cpu
+from ..utils.compile_cache import enable_compile_cache
+from ._cli import parse_flags
 
 
 def main(argv=None) -> int:
-    use_cpu()
+    enable_compile_cache()
     flags = parse_flags(sys.argv[1:] if argv is None else argv, {
         "out": (str, "awgn_sweep"),
         "packets": (int, 100),

@@ -15,18 +15,15 @@ device counts and reports, per device count:
     python -m lora_phy_tpu.runners.bench_scaling --mode=weak \
         --devices=1,2,4,8 [--sf=7] [--frames=32] [--out=PATH]
 
-On a real pod slice the same command measures ICI/DCN scaling (initialize
-multi-host first via parallel.multihost). On this single-chip image it
-runs on the virtual CPU mesh (tests pin CPU; the conftest sets
---xla_force_host_platform_device_count). **Virtual CPU devices share the
-host's physical cores** (4 on this image), and XLA-CPU already gives one
-device the whole intra-op thread pool — so wall-clock efficiency on the
-virtual mesh is bounded by core count, NOT by the mesh program, and is
-not a hardware claim. The transferable number from the virtual mesh is
-the collective fraction: compute parallelizes on real chips, while the
-collective pattern (2x ppermute halo + 3x psum/pmax per step) is what
-the mesh program itself adds. Both are reported separately so the
-artifact is interpretable without a caveat paragraph.
+On several GPUs the same command measures the scaling over NVLink
+(initialize multi-host first via parallel.multihost for more than one
+host). On the virtual CPU mesh (``--xla_force_host_platform_device_count``)
+**virtual devices share the host's physical cores**, and XLA-CPU already
+gives one device the whole intra-op thread pool — so wall-clock
+efficiency there is bounded by core count, NOT by the mesh program, and
+is not a device measurement. The collective pattern (2x ppermute halo +
+3x psum/pmax per step) is what the mesh program itself adds; the full
+and the collectives-stubbed times are reported separately.
 """
 
 from __future__ import annotations
@@ -42,6 +39,7 @@ from ..models import modem
 from ..ops import planar
 from ..parallel import mesh as meshlib
 from ..parallel.stream import demodulate_stream_planar
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.params import LoraParams
 from ._cli import parse_flags
 
@@ -55,9 +53,10 @@ def _time_pair(fn_a, fn_b, iters: int, repeats: int = 7):
     collective-cost estimate is a paired difference (correlated noise
     cancels) summarised downstream as a median with a spread, not a
     min-of-independent-bests (which round 4 showed can go negative)."""
+    import jax
+
     for fn in (fn_a, fn_b):
-        out = fn()
-        np.asarray(out[0][0, :2])       # compile + completion barrier
+        jax.block_until_ready(fn())     # compile
     fulls, stubs, diffs = [], [], []
     for _ in range(repeats):
         ts = []
@@ -65,7 +64,7 @@ def _time_pair(fn_a, fn_b, iters: int, repeats: int = 7):
             t0 = time.perf_counter()
             for _ in range(iters):
                 out = fn()
-            np.asarray(out[0][0, :2])
+            jax.block_until_ready(out)
             ts.append((time.perf_counter() - t0) / iters)
         fulls.append(ts[0])
         stubs.append(ts[1])
@@ -150,6 +149,7 @@ def measure(n_devices: int, params: LoraParams, payload_len: int,
 
 
 def main(argv=None) -> int:
+    enable_compile_cache()
     import jax
 
     flags = parse_flags(sys.argv[1:] if argv is None else argv, {

@@ -18,14 +18,15 @@ from ..models import modem
 from ..ops import coding
 from ..utils.params import LoraParams
 from ..utils.vectors import VectorRecord, write_binary_vectors
-from ._cli import parse_flags, use_cpu
+from ..utils.compile_cache import enable_compile_cache
+from ._cli import parse_flags
 
 PAYLOADS = [b"Hello", b"Test123", b"AAAAAAAAAA", b"\x00\x01\x02\x03",
-            b"LoRa TPU"]
+            b"LoRa GPU"]
 
 
 def main(argv=None) -> int:
-    use_cpu()
+    enable_compile_cache()
     flags = parse_flags(sys.argv[1:] if argv is None else argv, {
         "out": (str, "vectors_binary_out"),
     })

@@ -15,11 +15,12 @@ import numpy as np
 from ..models import gr_interop
 from ..utils.iqio import read_iq
 from ..utils.params import LoraParams
-from ._cli import parse_flags, use_cpu
+from ..utils.compile_cache import enable_compile_cache
+from ._cli import parse_flags
 
 
 def main(argv=None) -> int:
-    use_cpu()
+    enable_compile_cache()
     flags = parse_flags(sys.argv[1:] if argv is None else argv, {
         "in": (str, ""),
         "sf": (int, 7),

@@ -1,9 +1,11 @@
-"""Roofline evidence harness — reproduces the README's measured table.
+"""Roofline evidence harness.
 
 Measures on the current default device: fixed dispatch overhead, the
-effective HBM bandwidth (two-size-differenced elementwise stream, which
-cancels the overhead), and the demod step time vs its floors at SF7 and
-SF12. The reference has no such harness; its observability is rdtsc
+effective device-memory bandwidth (two-size-differenced elementwise
+stream, which cancels the overhead), and the demod step time vs its
+floors at SF7 and SF12 against the device's published peaks
+(utils/profiling.PEAKS, keyed by ``device_kind``; an unknown device is an
+error). The reference has no such harness; its observability is rdtsc
 cycle counting (tests/performance_test.cpp:103-133).
 
   python -m lora_phy_tpu.runners.roofline [--channels=8] [--frames=8192]
@@ -19,17 +21,21 @@ import numpy as np
 from ..models import modem
 from ..ops import planar
 from ..utils.params import LoraParams
-from ..utils.profiling import V5E_F32_FLOPS
+from ..utils.compile_cache import enable_compile_cache
+from ..utils.profiling import demod_roofline, device_peaks
 from ._cli import parse_flags
 
 
-def _timeit(fn, sync, iters):
-    fn()
-    sync()
+def _timeit(fn, iters):
+    """Mean seconds per call of ``fn`` (which returns device arrays),
+    completion-bounded by ``block_until_ready``."""
+    import jax
+
+    jax.block_until_ready(fn())
     t0 = time.perf_counter()
     for _ in range(iters):
-        fn()
-    sync()
+        out = fn()
+    jax.block_until_ready(out)
     return (time.perf_counter() - t0) / iters
 
 
@@ -38,44 +44,22 @@ def measure_dispatch_overhead(dev) -> float:
 
     tiny = jax.device_put(np.zeros(2, np.float32), dev)
     f = jax.jit(lambda a: a + 1.0)
-    out = [None]
-
-    def run():
-        out[0] = f(tiny)
-
-    return _timeit(run, lambda: np.asarray(out[0][:2]), 16)
+    return _timeit(lambda: f(tiny), 16)
 
 
 def measure_bandwidth(dev) -> float:
-    """Effective HBM r+w bandwidth, overhead-cancelled by differencing two
-    large sizes; best (minimum-time-delta is noise-prone, so use the median
-    of repeated paired measurements)."""
+    """Effective device-memory r+w bandwidth, overhead-cancelled by
+    differencing two large sizes (median of repeated paired
+    measurements)."""
     import jax
 
     sizes = [2**27, 2**29]                       # 512 MiB / 2 GiB f32
-    arrays = []
-    fns = []
-    for nsz in sizes:
-        a = jax.device_put(np.zeros(nsz, np.float32), dev)
-        f = jax.jit(lambda x: x * 1.0000001 + 0.5)
-        out = f(a)
-        np.asarray(out[:2])
-        out.delete()
-        arrays.append(a)
-        fns.append(f)
+    arrays = [jax.device_put(np.zeros(nsz, np.float32), dev)
+              for nsz in sizes]
+    f = jax.jit(lambda x: x * 1.0000001 + 0.5)
 
     def one_round():
-        ts = []
-        for a, f in zip(arrays, fns):
-            out = [None]
-
-            def run():
-                if out[0] is not None:
-                    out[0].delete()
-                out[0] = f(a)
-
-            ts.append(_timeit(run, lambda: np.asarray(out[0][:2]), 8))
-            out[0].delete()
+        ts = [_timeit(lambda a=a: f(a), 8) for a in arrays]
         return ts[1] - ts[0]
 
     dt = float(np.median([one_round() for _ in range(3)]))
@@ -104,15 +88,9 @@ def measure_demod(params: LoraParams, n_frames: int, channels: int,
         return planar.dechirp_planar(r, i, params)
 
     xr, xi = gen(jax.device_put(payloads, dev))
-    np.asarray(xr[0, 0, :2])
 
     f = jax.jit(lambda r, i: planar.demodulate_planar(r, i, params).symbols)
-    out = [None]
-
-    def run():
-        out[0] = f(xr, xi)
-
-    dt = _timeit(run, lambda: np.asarray(out[0][0, 0, :2]), 6)
+    dt = _timeit(lambda: f(xr, xi), 6)
     total = channels * n_frames * (payload_len * 2 + 2) * params.step
     xr.delete()
     xi.delete()
@@ -120,6 +98,7 @@ def measure_demod(params: LoraParams, n_frames: int, channels: int,
 
 
 def main(argv=None) -> int:
+    enable_compile_cache()
     import jax
 
     flags = parse_flags(sys.argv[1:] if argv is None else argv, {
@@ -127,14 +106,17 @@ def main(argv=None) -> int:
         "frames": (int, 8192),
     })
     dev = jax.devices()[0]
-    print(f"device: {dev}", file=sys.stderr)
+    peaks = device_peaks(dev.device_kind)
+    print(f"device: {dev} ({dev.device_kind})", file=sys.stderr)
 
     overhead = measure_dispatch_overhead(dev)
     bw = measure_bandwidth(dev)
     print(f"dispatch overhead: {overhead*1e3:.1f} ms")
-    print(f"effective HBM bandwidth (r+w, overhead-cancelled): {bw/1e9:.0f} GB/s")
+    print(f"effective memory bandwidth (r+w, overhead-cancelled): "
+          f"{bw/1e9:.0f} GB/s "
+          f"({bw / peaks['hbm_bytes_per_s']:.0%} of the published peak)")
 
-    # SF12 frames are 32x larger; keep the batch inside HBM
+    # SF12 frames are 32x larger; keep the batch inside device memory
     for sf, channels, frames in (
         (7, flags["channels"], flags["frames"]),
         (12, 1, max(64, flags["frames"] // 8)),
@@ -144,14 +126,11 @@ def main(argv=None) -> int:
         in_bytes = total * 8.0                      # planar f32 planes
         t_mem_intrinsic = in_bytes / bw
         implied_traffic = dt * bw
-        # analytic flop floor (utils/profiling model)
-        from ..utils.profiling import demod_roofline
-
-        r = demod_roofline(p, total // p.n, peak_flops=V5E_F32_FLOPS,
-                           peak_bw=bw)
+        r = demod_roofline(p, total // p.n, device_kind=dev.device_kind)
         print(
             f"SF{sf}: measured {dt*1e3:.1f} ms ({total/dt/1e9:.2f} Gsps) | "
-            f"compute floor {r.t_compute_s*1e3:.1f} ms | "
+            f"published-peak floor {max(r.t_compute_s, r.t_memory_s)*1e3:.1f}"
+            f" ms ({r.bound}-bound, {r.attained(dt):.1%} of roofline) | "
             f"intrinsic-traffic floor {t_mem_intrinsic*1e3:.1f} ms | "
             f"implied real traffic {implied_traffic/2**30:.0f} GiB "
             f"(~{implied_traffic/in_bytes:.0f} passes)"

@@ -19,11 +19,12 @@ import numpy as np
 
 from ..models import modem
 from ..utils.iqio import read_iq
-from ._cli import bandwidth_flag, params_from, parse_flags, use_cpu
+from ..utils.compile_cache import enable_compile_cache
+from ._cli import bandwidth_flag, params_from, parse_flags
 
 
 def main(argv=None) -> int:
-    use_cpu()
+    enable_compile_cache()
     flags = parse_flags(sys.argv[1:] if argv is None else argv, {
         "in": (str, ""),
         "sf": (int, 7),

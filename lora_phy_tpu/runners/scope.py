@@ -21,13 +21,14 @@ import sys
 
 import numpy as np
 
-from ._cli import bandwidth_flag, params_from, parse_flags, use_cpu
+from ..utils.compile_cache import enable_compile_cache
+from ._cli import bandwidth_flag, params_from, parse_flags
 
 _FORMATS = {"cf32": (np.float32, 8), "ci16": (np.int16, 4), "ci8": (np.int8, 2)}
 
 
 def main(argv=None) -> int:
-    use_cpu()
+    enable_compile_cache()
     flags = parse_flags(sys.argv[1:] if argv is None else argv, {
         "in": (str, ""),
         "sf": (int, 7),

@@ -24,11 +24,12 @@ import sys
 
 import numpy as np
 
-from ._cli import parse_flags, use_cpu
+from ..utils.compile_cache import enable_compile_cache
+from ._cli import parse_flags
 
 
 def main(argv=None) -> int:
-    use_cpu()
+    enable_compile_cache()
     flags = parse_flags(sys.argv[1:] if argv is None else argv, {
         "sf": (int, 7),
         "snr": (float, 20.0),

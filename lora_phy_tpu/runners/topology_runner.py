@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import sys
 
-from ._cli import parse_flags, use_cpu
+from ..utils.compile_cache import enable_compile_cache
+from ._cli import parse_flags
 
 SPEC = {
     "file": (str, ""),
@@ -32,7 +33,7 @@ def main(argv=None) -> int:
         print("Usage: topology_runner --file=PATH.pth [--ticks=N] "
               "[--sf=N] [--mtu=N] [--sync=0xNN] [--seed=N]", file=sys.stderr)
         return 1
-    use_cpu()  # host tool; the library paths themselves are TPU-ready
+    enable_compile_cache()
 
     from ..models import flowgraph as fg
 

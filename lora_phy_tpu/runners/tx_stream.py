@@ -32,13 +32,14 @@ import sys
 
 import numpy as np
 
-from ._cli import bandwidth_flag, params_from, parse_flags, use_cpu
+from ..utils.compile_cache import enable_compile_cache
+from ._cli import bandwidth_flag, params_from, parse_flags
 
 _FORMATS = {"cf32", "ci16", "ci8"}
 
 
 def main(argv=None) -> int:
-    use_cpu()
+    enable_compile_cache()
     flags = parse_flags(sys.argv[1:] if argv is None else argv, {
         "payloads": (str, ""),
         "payload": (str, ""),

@@ -11,7 +11,8 @@ from __future__ import annotations
 import pathlib
 import sys
 
-from ._cli import bandwidth_flag, params_from, parse_flags, window_flag, use_cpu
+from ..utils.compile_cache import enable_compile_cache
+from ._cli import bandwidth_flag, params_from, parse_flags, window_flag
 from .vector_generate import generate
 
 ALL_STAGES = (
@@ -31,7 +32,7 @@ _STAGE_FILES = {
 
 
 def main(argv=None) -> int:
-    use_cpu()
+    enable_compile_cache()
     flags = parse_flags(sys.argv[1:] if argv is None else argv, {
         "sf": (int, 7),
         "seed": (int, 1),

@@ -26,7 +26,8 @@ from ..models import modem
 from ..ops import coding
 from ..ops.impair import apply_cfo, apply_time_shift
 from ..utils.manifest import b64_encode_file, write_manifest
-from ._cli import bandwidth_flag, params_from, parse_flags, window_flag, use_cpu
+from ..utils.compile_cache import enable_compile_cache
+from ._cli import bandwidth_flag, params_from, parse_flags, window_flag
 
 
 def generate(out_dir, params, seed=1, byte_count=16, cfo_bins=0.0,
@@ -110,7 +111,7 @@ def generate(out_dir, params, seed=1, byte_count=16, cfo_bins=0.0,
 
 
 def main(argv=None) -> int:
-    use_cpu()
+    enable_compile_cache()
     flags = parse_flags(sys.argv[1:] if argv is None else argv, {
         "sf": (int, 7),
         "seed": (int, 1),

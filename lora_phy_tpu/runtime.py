@@ -1,6 +1,6 @@
 """ctypes binding for the native C++ runtime (runtime/lora_runtime.cpp).
 
-The native layer owns high-rate ingest work the TPU shouldn't: sample
+The native layer owns high-rate ingest work the device shouldn't: sample
 format conversion (cf32/ci16/ci8 interleaved -> planar float32), a
 zero-steady-state-allocation overlap-save ring, and direct file ingest —
 producing planar batches ready for ``jax.device_put``. Builds the shared

@@ -1,7 +1,7 @@
 """Tracing / roofline accounting.
 
 The reference's observability is rdtsc cycle counting around the packet
-loop (reference: tests/performance_test.cpp:103-133). The TPU equivalents
+loop (reference: tests/performance_test.cpp:103-133). The equivalents
 here (SURVEY.md §5.1):
 
 * :func:`trace` — context manager around ``jax.profiler`` emitting a
@@ -20,7 +20,7 @@ from .params import LoraParams
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/lora_tpu_trace"):
+def trace(log_dir: str):
     import jax
 
     jax.profiler.start_trace(log_dir)
@@ -43,15 +43,33 @@ class Roofline:
         return max(self.t_compute_s, self.t_memory_s) / measured_s
 
 
-# v5e single-chip peaks (public numbers)
-V5E_F32_FLOPS = 4.9e13      # MXU fp32 (~1/4 of 197 TFLOPs bf16)
-V5E_BF16_FLOPS = 1.97e14
-V5E_HBM_BPS = 8.2e11        # ~820 GB/s
+# Published peaks, keyed by ``jax.Device.device_kind``. Source: NVIDIA
+# H100 Tensor Core GPU data sheet, SXM part, at the full 700 W power limit
+# (a card set below it cannot hold its top clock under load, so state its
+# power limit beside any share). The demod's dots run at
+# ``Precision.HIGHEST`` (float32 outside the tensor cores), so
+# ``f32_flops`` is their compute roof.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "f32_flops": 67e12,
+        "hbm_bytes_per_s": 3.35e12,
+    },
+}
+
+
+def device_peaks(device_kind: str) -> dict:
+    """Published peaks of ``device_kind``; an unknown device is an error,
+    never a default."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {device_kind!r}; add them "
+            "to utils/profiling.PEAKS with their source") from None
 
 
 def demod_roofline(params: LoraParams, n_symbols: int,
-                   peak_flops: float = V5E_F32_FLOPS,
-                   peak_bw: float = V5E_HBM_BPS) -> Roofline:
+                   device_kind: str) -> Roofline:
     """Speed-of-light floors for demodulating ``n_symbols`` symbol windows.
 
     Counts the fused pipeline's intrinsic work: planar DFT as real matmuls
@@ -63,13 +81,14 @@ def demod_roofline(params: LoraParams, n_symbols: int,
     if n <= 128:
         mm_flops = 8.0 * n * n          # 4 matmuls, 2 flops/MAC
     else:
-        from ..ops.fft import _split
+        from ..ops.planar import _split
 
         n1, n2 = _split(n)              # the REAL four-step factorisation
         mm_flops = 8.0 * n * (n1 + n2)
     flops = n_symbols * (mm_flops + 10.0 * n)     # + derot/mag/argmax
     bytes_ = n_symbols * (n * 8.0 + 4.0)          # planar in + bin out
-    t_c = flops / peak_flops
-    t_m = bytes_ / peak_bw
+    peaks = device_peaks(device_kind)
+    t_c = flops / peaks["f32_flops"]
+    t_m = bytes_ / peaks["hbm_bytes_per_s"]
     return Roofline(flops, bytes_, t_c, t_m,
                     "compute" if t_c > t_m else "memory")

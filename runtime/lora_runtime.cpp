@@ -1,9 +1,9 @@
-// Native runtime for the TPU LoRa framework: high-rate IQ ingest, format
-// conversion and overlap-save blocking, feeding the JAX/TPU compute path.
+// Native runtime for the JAX LoRa framework: high-rate IQ ingest, format
+// conversion and overlap-save blocking, feeding the JAX compute path.
 //
 // The reference's native layer is its C++ modem core; here the modem math
-// lives on the TPU (JAX/Pallas), and the native layer owns what the TPU
-// should not: byte-stream ingest, sample-format conversion (interleaved
+// lives on the accelerator (JAX), and the native layer owns what the
+// accelerator should not: byte-stream ingest, sample-format conversion (interleaved
 // cf32 / int16 / int8 -> planar float32), ring buffering of continuous
 // streams, and overlap-save block emission with halos for the time-sharded
 // demodulator (SURVEY.md §5.7a). Zero allocations on the steady-state path

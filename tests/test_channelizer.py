@@ -120,7 +120,7 @@ def test_channelizer_batched():
 
 def test_planar_channelizer_matches_complex():
     """channelize_planar / synthesize_channels_planar are bit-close twins
-    of the complex bank — the wideband front end on complex-free TPUs."""
+    of the complex bank — the planar wideband front end."""
     from lora_phy_tpu.ops.channelizer import (channelize_planar,
                                               synthesize_channels_planar)
 

@@ -30,7 +30,7 @@ def test_coded_roundtrip(sf, cr):
 @pytest.mark.parametrize("whiten", [False, True])
 def test_coded_modes(ldro, crc, whiten):
     cfg = CodedConfig(sf=8, cr=4, ldro=ldro, crc=crc, whiten=whiten)
-    payload = np.frombuffer(b"Hello LoRa TPU!!", dtype=np.uint8)
+    payload = np.frombuffer(b"Hello LoRa GPU!!", dtype=np.uint8)
     syms = coded.encode_payload(payload, cfg)
     assert syms.shape[-1] == coded.payload_symbol_count(len(payload), cfg)
     # symbols stay inside the chirp alphabet

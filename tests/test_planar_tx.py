@@ -1,7 +1,7 @@
 """Planar (complex-free) TX path: the modulator emits (re, im) float32
 planes bit-identical to the complex emitter, and the full TX -> dechirp ->
 demod -> decode loop closes without touching complex64 anywhere — the
-deployment contract for TPU PJRTs without complex support (CLAUDE.md).
+deployment contract of the planar (split re/im float32) path.
 
 Reference TX chain under parity: src/phy/LoRaMod.cpp:8-43 (lora_modulate),
 include/lora_phy/ChirpGenerator.hpp:23-50 (genChirp hot loop).

@@ -187,8 +187,9 @@ def test_tx_rx_nondefault_params(tmp_path, capsys):
 
 def test_imports_do_not_initialize_backend(tmp_path):
     """Importing the package (models, runners) must not create device
-    arrays: a backend initialized at import time silently defeats the CLI
-    CPU pin (runners/_cli.use_cpu) on complex-free TPU PJRTs."""
+    arrays or pick a backend: the library sets nothing at import time, so
+    a program (the test suite's CPU pin, a CLI's compile-cache setup) can
+    still configure JAX after importing it."""
     import pathlib
     import subprocess
     import sys
@@ -268,3 +269,52 @@ def test_scope_runner(tmp_path, capfd):
     assert rc == 0 and out.exists() and out.stat().st_size > 10000
     assert "(1 frames annotated)" in err
     assert scope.main(["--sf=7"]) == 1        # missing --in
+
+
+def test_compile_cache_honours_env(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR set: the helper returns it and sets no
+    other directory (JAX reads the variable itself)."""
+    import jax
+
+    from lora_phy_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.enable_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_in_checkout(monkeypatch):
+    """Variable unset: the cache goes to the fixed <checkout>/.jax_cache."""
+    import pathlib
+
+    import jax
+
+    from lora_phy_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    try:
+        got = compile_cache.enable_compile_cache()
+        assert got == str(repo / ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == got
+        assert compile_cache.enable_compile_cache() == got   # stable
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_rx_stream_leaves_platform_untouched(tmp_path, capfd):
+    """The CLIs run on JAX's default device: lora-rx-stream changes no
+    platform setting."""
+    import jax
+    import numpy as np
+
+    from lora_phy_tpu.runners import rx_stream
+
+    before = jax.config.jax_platforms
+    path = tmp_path / "silence.iq"
+    np.zeros(2 * 8192, np.float32).tofile(path)
+    assert rx_stream.main([f"--in={path}", "--sf=7", "--quiet"]) == 0
+    assert jax.config.jax_platforms == before
+    assert capfd.readouterr().out == ""

@@ -1,5 +1,5 @@
 // Dumps exhaustive truth tables of the REFERENCE coding primitives for
-// bit-exactness testing of the TPU rebuild.
+// bit-exactness testing of the JAX rebuild.
 #include <lora_phy/LoRaCodes.hpp>
 #include <cstdio>
 #include <cstdint>

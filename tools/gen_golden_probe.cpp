@@ -1,5 +1,5 @@
 // Golden-fixture probe: drives the REFERENCE library (read-only mount) to
-// dump stage-by-stage outputs for parity testing of the TPU rebuild.
+// dump stage-by-stage outputs for parity testing of the JAX rebuild.
 // Lives outside the repo; only its binary outputs (fixtures) are consumed.
 #include <lora_phy/phy.hpp>
 #include <lora_phy/ChirpGenerator.hpp>

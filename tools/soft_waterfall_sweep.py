@@ -23,9 +23,6 @@ import sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
 import numpy as np  # noqa: E402
 
 from lora_phy_tpu.models import coded, soft  # noqa: E402
